@@ -24,6 +24,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np
 
+from circminer_jax.cli import EXECUTORS
+
 BASELINE_READS_PER_SEC = 10_000.0
 
 
@@ -40,7 +42,9 @@ def main():
     ap.add_argument("--genome-len", type=int, default=None)
     ap.add_argument("--err-rate", type=float, default=0.005)
     ap.add_argument("--batch", type=int, default=16384)
-    ap.add_argument("--cpu", action="store_true", help="force CPU backend")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the host CPU backend; without it a "
+                         "backend other than the GPU is refused")
     ap.add_argument("--profile-circ", default=None, metavar="PATH",
                     help="cProfile the circRNA stage and dump stats there")
     ap.add_argument("--dump-events", default=None, metavar="PATH",
@@ -59,27 +63,28 @@ def main():
                     help="run the timed map+call region N times on fresh "
                          "read-state and report the best (default 3 for "
                          "the chr21 headline config, 1 for --smoke/--toy; "
-                         "run-to-run spread goes in the JSON so progress "
-                         "claims survive the 2-vCPU contention trap, "
-                         "HW_NOTES.md)")
+                         "run-to-run spread goes in the JSON)")
     ap.add_argument("--exec", dest="chain_exec", default="auto",
-                    choices=["auto", "device", "device-chain", "native",
-                             "wave", "device-full"],
-                    help="seed-lookup + chain-DP executor (auto probes the "
-                         "tunnel and picks the faster path on this "
-                         "hardware); wave = device lookup/chain auto + "
+                    choices=list(EXECUTORS),
+                    help="seed-lookup + chain-DP executor (auto probes "
+                         "device and host lookup at warmup and picks the "
+                         "faster); wave = device lookup/chain auto + "
                          "wave-batched device extension; device-full = "
                          "the fused on-device finish (lookup->chain->"
                          "extend->categories in one dispatch, only final "
                          "MatchedRead state crosses d2h)")
     args = ap.parse_args()
 
+    import jax
     if args.cpu:
-        import jax
         jax.config.update("jax_platforms", "cpu")
+    elif jax.devices()[0].platform != "gpu":
+        sys.exit(f"bench: no GPU found (JAX platform "
+                 f"{jax.devices()[0].platform!r}); pass --cpu to run on "
+                 f"the host CPU")
 
-    import circminer_tpu
-    circminer_tpu.enable_compilation_cache()
+    import circminer_jax
+    circminer_jax.enable_compilation_cache()
 
     if args.smoke:
         n_reads = args.n_reads or 500
@@ -95,17 +100,16 @@ def main():
         genome_len = args.genome_len or 47_000_000
         dup_frac = 0.05
 
-    from circminer_tpu.config import Config, CHIBSJ, CHI2BSJ, CONCRD
-    from circminer_tpu.sim import make_genome, simulate_reads
-    from circminer_tpu.io.fasta import GenomePacker, ContigLen
-    from circminer_tpu.index.build import build_genome_index
-    from circminer_tpu.annotation.annotation import AnnotationDB
-    from circminer_tpu.pipeline.device_pipeline import DeviceMappingPipeline
-    from circminer_tpu.pipeline.mapping import ReadRecord
-    from circminer_tpu.pipeline.types import MatchedRead
-    from circminer_tpu.pipeline.circ import ProcessCirc
-    from circminer_tpu.ops.encode import encode_seq, revcomp
-    import jax
+    from circminer_jax.config import Config, CHIBSJ, CHI2BSJ, CONCRD
+    from circminer_jax.sim import make_genome, simulate_reads
+    from circminer_jax.io.fasta import GenomePacker, ContigLen
+    from circminer_jax.index.build import build_genome_index
+    from circminer_jax.annotation.annotation import AnnotationDB
+    from circminer_jax.pipeline.device_pipeline import DeviceMappingPipeline
+    from circminer_jax.pipeline.mapping import ReadRecord
+    from circminer_jax.pipeline.types import MatchedRead
+    from circminer_jax.pipeline.circ import ProcessCirc
+    from circminer_jax.ops.encode import encode_seq, revcomp
 
     rng = np.random.default_rng(20260817)
     n_genes = max(3, genome_len // 60_000)
@@ -115,12 +119,12 @@ def main():
 
     import pickle
     import hashlib
-    cache_dir = os.path.expanduser("~/.cache/circminer_tpu")
+    cache_dir = circminer_jax.CACHE_DIR
     os.makedirs(cache_dir, exist_ok=True)
     # key the setup cache on the sources that produce it, so simulator /
     # index-builder / annotation changes invalidate stale (g, gi, db)
     # pickles instead of silently masking regressions in the accuracy gate
-    pkg = os.path.dirname(os.path.abspath(circminer_tpu.__file__))
+    pkg = os.path.dirname(os.path.abspath(circminer_jax.__file__))
     h = hashlib.sha256()
     for src in ("sim.py", "index/build.py", "annotation/annotation.py",
                 "io/fasta.py"):
@@ -185,9 +189,8 @@ def main():
             pairs_e = [make_pair(r, e) for r in reads]
             pipe = DeviceMappingPipeline(db, gi, cfg_e,
                                          batch_size=args.batch,
-                                         chain_exec=args.chain_exec
-                                         if args.chain_exec != "wave"
-                                         else "auto")
+                                         chain_exec=EXECUTORS[
+                                             args.chain_exec][0])
             pipe.warmup()
             t0 = time.time()
             n = pipe.map_stream(iter(pairs_e))
@@ -199,7 +202,7 @@ def main():
                 r1.mr.genome_spos = r1.mr.spos_r1
             bsj.sort(key=lambda pr: pr[0].mr.genome_spos)
             pc = ProcessCirc(db, gi, cfg_e,
-                             os.path.join("/tmp", f"bench_ed{e}"))
+                             os.path.join(cache_dir, f"bench_ed{e}"))
             pc.run(bsj)
             circ_s = time.time() - t0
             called = sorted({(c.spos, c.epos) for c in pc.circ_res})
@@ -231,8 +234,7 @@ def main():
 
     pairs = [make_pair(r, cfg.max_ed) for r in reads]
 
-    extend_exec = "device" if args.chain_exec == "wave" else "native"
-    chain_exec = "auto" if args.chain_exec == "wave" else args.chain_exec
+    chain_exec, extend_exec = EXECUTORS[args.chain_exec]
     pipe = DeviceMappingPipeline(db, gi, cfg, batch_size=args.batch,
                                  chain_exec=chain_exec,
                                  extend_exec=extend_exec)
@@ -245,7 +247,7 @@ def main():
         repeat = 1 if (args.smoke or args.toy or args.profile_circ
                        or args.dump_events) else 3
     runs = []
-    from circminer_tpu.utils.timing import GLOBAL_TIMER as _T
+    from circminer_jax.utils.timing import GLOBAL_TIMER as _T
     for rep in range(repeat):
         if rep > 0:
             # fresh per-read state: the mapping mutates mr in place
@@ -261,7 +263,7 @@ def main():
             for r1, _ in bsj:
                 r1.mr.genome_spos = r1.mr.spos_r1
             bsj.sort(key=lambda pr: pr[0].mr.genome_spos)
-        pc = ProcessCirc(db, gi, cfg, os.path.join("/tmp", "bench_out"))
+        pc = ProcessCirc(db, gi, cfg, os.path.join(cache_dir, "bench_out"))
         if args.circ_device:
             pc.run(bsj, device_ext=True)
             circ_s = time.time() - t0
@@ -315,7 +317,7 @@ def main():
         f"setup={setup_s:.1f}s warm={warm_s:.1f}s map={map_s:.1f}s circ={circ_s:.1f}s "
         f"CONCRD={n_conc} BSJ={n_bsj_reads} events={n_events} "
         f"(true events={len(truth)}, matched={n_matched})\n")
-    from circminer_tpu.utils.timing import GLOBAL_TIMER
+    from circminer_jax.utils.timing import GLOBAL_TIMER
     sys.stderr.write(GLOBAL_TIMER.report() + "\n")
     if pipe.wave_stats["batches"]:
         ws = pipe.wave_stats

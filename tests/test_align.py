@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from circminer_tpu.ops.encode import encode_seq
-from circminer_tpu.ops import align as al
+from circminer_jax.ops.encode import encode_seq
+from circminer_jax.ops import align as al
 
 
 def ed_brute(a, b):

@@ -9,10 +9,10 @@ src/align.cpp:219-252, 556-723 by tests/test_align.py)."""
 import numpy as np
 import pytest
 
-from circminer_tpu.config import Config
-from circminer_tpu.ops import align as al
-from circminer_tpu.ops.align_device import DeviceAlignService
-from circminer_tpu.pipeline.extend import InlineAlignService
+from circminer_jax.config import Config
+from circminer_jax.ops import align as al
+from circminer_jax.ops.align_device import DeviceAlignService
+from circminer_jax.pipeline.extend import InlineAlignService
 
 
 @pytest.fixture(scope="module")

@@ -2,11 +2,9 @@
 import numpy as np
 import pytest
 
-from circminer_tpu.ops import align as al
+from circminer_jax.ops import align as al
 
-na_mod = pytest.importorskip("circminer_tpu.ops.align_native")
-if not na_mod.available():
-    pytest.skip("native alignment lib unavailable", allow_module_level=True)
+from circminer_jax.ops import align_native as na_mod
 
 
 @pytest.fixture(scope="module")

@@ -1,10 +1,10 @@
 import numpy as np
 import pytest
 
-from circminer_tpu.config import Config
-from circminer_tpu.io.fasta import ContigLen
-from circminer_tpu.io.gtf import load_gtf, UniqSegKey
-from circminer_tpu.annotation.annotation import (
+from circminer_jax.config import Config
+from circminer_jax.io.fasta import ContigLen
+from circminer_jax.io.gtf import load_gtf, UniqSegKey
+from circminer_jax.annotation.annotation import (
     AnnotationDB, build_contig_annotation, _decompose)
 
 

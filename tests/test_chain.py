@@ -2,12 +2,12 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from circminer_tpu.config import Config
-from circminer_tpu.ops.chain import (
+from circminer_jax.config import Config
+from circminer_jax.ops.chain import (
     chain_seeds_host, chain_batch_device, extract_kbest, Chain)
-from circminer_tpu.annotation.device import AnnoDevice
-from circminer_tpu.annotation.annotation import AnnotationDB
-from circminer_tpu.io.fasta import ContigLen
+from circminer_jax.annotation.device import AnnoDevice
+from circminer_jax.annotation.annotation import AnnotationDB
+from circminer_jax.io.fasta import ContigLen
 
 
 def make_db(tmp_path, lines):

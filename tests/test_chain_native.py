@@ -3,13 +3,9 @@
 import numpy as np
 import pytest
 
-from circminer_tpu.config import Config
-from circminer_tpu.ops.chain import chain_seeds_host
-from circminer_tpu.ops import chain_native
-
-
-pytestmark = pytest.mark.skipif(not chain_native.available(),
-                                reason="native chain library unavailable")
+from circminer_jax.config import Config
+from circminer_jax.ops.chain import chain_seeds_host
+from circminer_jax.ops import chain_native
 
 
 def _random_case(rng, cfg, db, contig, genome_len, k, n_lists, cap):
@@ -71,8 +67,8 @@ def test_native_chain_matches_oracle_no_annotation():
 
 def test_native_chain_matches_oracle_with_annotation(tmp_path):
     """Junction-gated chaining across a two-exon gene."""
-    from circminer_tpu.annotation.annotation import AnnotationDB
-    from circminer_tpu.io.fasta import ContigLen
+    from circminer_jax.annotation.annotation import AnnotationDB
+    from circminer_jax.io.fasta import ContigLen
 
     cfg = Config(kmer=20, max_read_len=120)
     glen = 200_000
@@ -161,7 +157,7 @@ def test_native_extract_matches_python_extract():
     """batch_extract_kbest (C++) vs extract_kbest (python) on device chain
     DP outputs — the device executor's extraction path."""
     import jax.numpy as jnp
-    from circminer_tpu.ops.chain import chain_batch_device, extract_kbest
+    from circminer_jax.ops.chain import chain_batch_device, extract_kbest
 
     cfg = Config(kmer=20, max_read_len=120)
     rng = np.random.default_rng(23)

@@ -13,16 +13,16 @@ import tempfile
 import numpy as np
 import pytest
 
-from circminer_tpu.config import Config, CHIBSJ, CHI2BSJ
-from circminer_tpu.sim import make_genome, simulate_reads
-from circminer_tpu.io.fasta import GenomePacker
-from circminer_tpu.index.build import build_genome_index
-from circminer_tpu.annotation.annotation import AnnotationDB
-from circminer_tpu.pipeline.device_pipeline import DeviceMappingPipeline
-from circminer_tpu.pipeline.mapping import ReadRecord
-from circminer_tpu.pipeline.types import MatchedRead
-from circminer_tpu.pipeline.circ import ProcessCirc
-from circminer_tpu.ops.encode import encode_seq, revcomp
+from circminer_jax.config import Config, CHIBSJ, CHI2BSJ
+from circminer_jax.sim import make_genome, simulate_reads
+from circminer_jax.io.fasta import GenomePacker
+from circminer_jax.index.build import build_genome_index
+from circminer_jax.annotation.annotation import AnnotationDB
+from circminer_jax.pipeline.device_pipeline import DeviceMappingPipeline
+from circminer_jax.pipeline.mapping import ReadRecord
+from circminer_jax.pipeline.types import MatchedRead
+from circminer_jax.pipeline.circ import ProcessCirc
+from circminer_jax.ops.encode import encode_seq, revcomp
 
 
 @pytest.fixture(scope="module")

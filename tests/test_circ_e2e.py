@@ -7,8 +7,8 @@ import sys
 import numpy as np
 import pytest
 
-from circminer_tpu.cli import main as cli_main
-from circminer_tpu.sim import make_genome, simulate_reads, write_fastq
+from circminer_jax.cli import main as cli_main
+from circminer_jax.sim import make_genome, simulate_reads, write_fastq
 
 
 @pytest.fixture(scope="module")
@@ -52,8 +52,8 @@ def test_cli_end_to_end(dataset, monkeypatch):
 def test_remain_fastq_roundtrip(dataset):
     """The 23-token remain-FASTQ header channel parses back identically."""
     tmp, _ = dataset
-    from circminer_tpu.config import Config
-    from circminer_tpu.io.fastq import FastqReader, format_map_comment
+    from circminer_jax.config import Config
+    from circminer_jax.io.fastq import FastqReader, format_map_comment
     cfg = Config()
     p = tmp / "out_1_remain_R1.fastq"
     assert p.exists()
@@ -63,9 +63,9 @@ def test_remain_fastq_roundtrip(dataset):
         # re-format and re-parse: fixpoint
         c1 = format_map_comment(rec.mr)
         toks = (rec.rname + c1).split(" ")
-        from circminer_tpu.pipeline.types import MatchedRead
+        from circminer_jax.pipeline.types import MatchedRead
         mr2 = MatchedRead.default(cfg.max_ed)
-        from circminer_tpu.io.fastq import parse_map_comment
+        from circminer_jax.io.fastq import parse_map_comment
         parse_map_comment(toks, mr2, cfg.max_ed)
         assert mr2.spos_r1 == rec.mr.spos_r1
         assert mr2.type == rec.mr.type

@@ -8,17 +8,17 @@ import tempfile
 import numpy as np
 import pytest
 
-from circminer_tpu.config import Config, CHIBSJ, CHI2BSJ
-from circminer_tpu.sim import make_genome, simulate_reads
-from circminer_tpu.io.fasta import GenomePacker
-from circminer_tpu.index.build import build_genome_index
-from circminer_tpu.annotation.annotation import AnnotationDB
-from circminer_tpu.pipeline.device_pipeline import DeviceMappingPipeline
-from circminer_tpu.pipeline.mapping import ReadRecord
-from circminer_tpu.pipeline.types import MatchedRead
-from circminer_tpu.pipeline.circ import ProcessCirc
-from circminer_tpu.ops.encode import encode_seq, revcomp
-from circminer_tpu.ops import circ_native
+from circminer_jax.config import Config, CHIBSJ, CHI2BSJ
+from circminer_jax.sim import make_genome, simulate_reads
+from circminer_jax.io.fasta import GenomePacker
+from circminer_jax.index.build import build_genome_index
+from circminer_jax.annotation.annotation import AnnotationDB
+from circminer_jax.pipeline.device_pipeline import DeviceMappingPipeline
+from circminer_jax.pipeline.mapping import ReadRecord
+from circminer_jax.pipeline.types import MatchedRead
+from circminer_jax.pipeline.circ import ProcessCirc
+from circminer_jax.ops.encode import encode_seq, revcomp
+from circminer_jax.ops import circ_native
 
 
 @pytest.fixture(scope="module")
@@ -68,8 +68,6 @@ def _key(c):
             c.end_signal, c.start_bp_ref, c.end_bp_ref)
 
 
-@pytest.mark.skipif(not circ_native.available(),
-                    reason="native circ library unavailable")
 def test_native_circ_matches_oracle(bsj_stream):
     db, gi, cfg, bsj = bsj_stream
     assert len(bsj) > 50, "stream too small to be a meaningful pin"
@@ -87,8 +85,6 @@ def test_native_circ_matches_oracle(bsj_stream):
     assert len(pc_nt.circ_res) > 10
 
 
-@pytest.mark.skipif(not circ_native.available(),
-                    reason="native circ library unavailable")
 def test_native_circ_single_thread_order(bsj_stream):
     """Record order must be read-stream order regardless of thread count."""
     db, gi, cfg, bsj = bsj_stream

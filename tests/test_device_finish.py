@@ -2,13 +2,13 @@
 import numpy as np
 import pytest
 
-from circminer_tpu.config import Config
-from circminer_tpu.sim import make_genome, simulate_reads
-from circminer_tpu.io.fasta import GenomePacker
-from circminer_tpu.index.build import build_genome_index
-from circminer_tpu.annotation.annotation import AnnotationDB
-from circminer_tpu.annotation.device import AnnoDevice
-from circminer_tpu.ops.encode import encode_seq, revcomp
+from circminer_jax.config import Config
+from circminer_jax.sim import make_genome, simulate_reads
+from circminer_jax.io.fasta import GenomePacker
+from circminer_jax.index.build import build_genome_index
+from circminer_jax.annotation.annotation import AnnotationDB
+from circminer_jax.annotation.device import AnnoDevice
+from circminer_jax.ops.encode import encode_seq, revcomp
 
 
 @pytest.fixture(scope="module")
@@ -33,8 +33,8 @@ def world(tmp_path_factory):
 def _chain_dp(world, cap=16):
     """Run lookup + device chain DP over all 4 rows of every pair."""
     import jax.numpy as jnp
-    from circminer_tpu.ops.seed import lookup_batch_device
-    from circminer_tpu.ops.chain import chain_batch_device
+    from circminer_jax.ops.seed import lookup_batch_device
+    from circminer_jax.ops.chain import chain_batch_device
     rng, g, cfg, gi, db, reads = world
     ci = gi.contigs[0]
     ad = AnnoDevice.from_contig(db.contigs[0], seg_pad=16)
@@ -80,8 +80,8 @@ def _chain_dp(world, cap=16):
 
 def test_extract_kbest_device_parity(world):
     import jax.numpy as jnp
-    from circminer_tpu.ops.chain import extract_kbest
-    from circminer_tpu.ops.device_finish import extract_kbest_device
+    from circminer_jax.ops.chain import extract_kbest
+    from circminer_jax.ops.device_finish import extract_kbest_device
     rng, g, cfg, gi, db, reads = world
     dp10, back, pos, qpos, cnt, lens = _chain_dp(world)
     C = cfg.max_chain_len

@@ -8,15 +8,15 @@ same simulated library (linear + circular + junk reads).
 import numpy as np
 import pytest
 
-from circminer_tpu.config import Config, CATEGORY_NAMES
-from circminer_tpu.sim import make_genome, simulate_reads
-from circminer_tpu.io.fasta import GenomePacker
-from circminer_tpu.index.build import build_genome_index
-from circminer_tpu.annotation.annotation import AnnotationDB
-from circminer_tpu.pipeline.device_pipeline import DeviceMappingPipeline
-from circminer_tpu.pipeline.mapping import ReadRecord
-from circminer_tpu.pipeline.types import MatchedRead
-from circminer_tpu.ops.encode import encode_seq, revcomp
+from circminer_jax.config import Config, CATEGORY_NAMES
+from circminer_jax.sim import make_genome, simulate_reads
+from circminer_jax.io.fasta import GenomePacker
+from circminer_jax.index.build import build_genome_index
+from circminer_jax.annotation.annotation import AnnotationDB
+from circminer_jax.pipeline.device_pipeline import DeviceMappingPipeline
+from circminer_jax.pipeline.mapping import ReadRecord
+from circminer_jax.pipeline.types import MatchedRead
+from circminer_jax.ops.encode import encode_seq, revcomp
 
 FIELDS = ("type", "spos_r1", "epos_r1", "qspos_r1", "qepos_r1", "mlen_r1",
           "ed_r1", "r1_forward", "spos_r2", "epos_r2", "qspos_r2",
@@ -86,3 +86,59 @@ def test_device_full_matches_native(tmp_path, err):
     assert bad == 0, f"{bad} mismatching reads (deferred {n_def}/{n_tot})"
     # the device must genuinely handle most of the batch
     assert n_def < 0.5 * n_tot, f"deferred {n_def}/{n_tot}"
+
+
+@pytest.mark.parametrize("seg_compact", [False, True])
+def test_seg_compact_reaches_chain_prelude(monkeypatch, seg_compact):
+    """device_full_step forwards its seg_compact static down to the chain
+    DP's prelude, where the wide/slim seg-table choice is made."""
+    import jax
+    import jax.numpy as jnp
+    from __graft_entry__ import _tiny_problem
+    from circminer_jax.ops import chain as chain_mod
+    from circminer_jax.ops.align import ScoreMat
+    from circminer_jax.ops.device_full import device_full_step
+    from circminer_jax.ops.filter_native import NativeFilter
+    from circminer_jax.annotation.device import FinishAnnoDevice
+
+    seen = []
+    real = chain_mod._chain_prelude
+
+    def spy(*a, **kw):
+        seen.append(kw["seg_compact"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(chain_mod, "_chain_prelude", spy)
+    jax.clear_caches()      # retrace: the jitted callers cache the prelude
+    cfg, ci, ad, reads, lens, db = _tiny_problem(1)
+    fa = FinishAnnoDevice.from_contig(db.contigs[0], db.con2chr[0],
+                                      seg_pad=4)
+    sm = ScoreMat()
+    B = reads.shape[0] // 4
+    mr_in = np.tile(NativeFilter.mr_to_state(MatchedRead.default(cfg.max_ed),
+                                             ["chr1"]), (B, 1))
+    out = jax.eval_shape(
+        lambda s, l, m: device_full_step(
+            s, l, m, jnp.asarray(ci.entry_hv),
+            jnp.asarray(ci.entry_checksum), jnp.asarray(ci.entry_pos),
+            jnp.asarray(ci.codes), ad, fa, None, contig_num=0,
+            k=cfg.kmer, cs_len=cfg.checksum_len, n_slots=cfg.max_seg_cnt,
+            seed_lim=cfg.seed_lim, cap=16, max_ed=cfg.max_ed,
+            max_sc=cfg.max_sc, band=cfg.band_width, max_tlen=cfg.max_tlen,
+            max_intron=cfg.max_intron, seg_pad=4, scan_level=0, KB=6,
+            P_MAX=8, W_MAX=16, OS_POOL=64, XD_POOL=64, EX_ITERS=8,
+            mat=sm.mat, mis=sm.mis, ind=sm.ind, xd=sm.xd,
+            seg_compact=seg_compact),
+        reads, lens, jnp.asarray(mr_in.astype(np.int32)))
+    assert out.shape == (B, 21)
+    assert seen == [seg_compact]
+
+
+@pytest.mark.parametrize("resident,wide,limit,want", [
+    (10 << 30, 1 << 30, None, False),     # host CPU: no limit reported
+    (10 << 30, 1 << 30, 60 << 30, False),  # fits in half the card
+    (28 << 30, 4 << 30, 60 << 30, True),   # would take more than half
+])
+def test_choose_seg_compact(resident, wide, limit, want):
+    from circminer_jax.pipeline.device_pipeline import choose_seg_compact
+    assert choose_seg_compact(resident, wide, limit) is want

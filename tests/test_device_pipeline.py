@@ -2,15 +2,15 @@
 import numpy as np
 import pytest
 
-from circminer_tpu.config import Config, CATEGORY_NAMES
-from circminer_tpu.sim import make_genome, simulate_reads
-from circminer_tpu.io.fasta import GenomePacker
-from circminer_tpu.index.build import build_genome_index
-from circminer_tpu.annotation.annotation import AnnotationDB
-from circminer_tpu.pipeline.mapping import Mapper, ReadRecord, make_host_seeder
-from circminer_tpu.pipeline.device_pipeline import DeviceMappingPipeline
-from circminer_tpu.pipeline.types import MatchedRead
-from circminer_tpu.ops.encode import encode_seq, revcomp
+from circminer_jax.config import Config, CATEGORY_NAMES
+from circminer_jax.sim import make_genome, simulate_reads
+from circminer_jax.io.fasta import GenomePacker
+from circminer_jax.index.build import build_genome_index
+from circminer_jax.annotation.annotation import AnnotationDB
+from circminer_jax.pipeline.mapping import Mapper, ReadRecord, make_host_seeder
+from circminer_jax.pipeline.device_pipeline import DeviceMappingPipeline
+from circminer_jax.pipeline.types import MatchedRead
+from circminer_jax.ops.encode import encode_seq, revcomp
 
 
 def make_rec(r1, r2, cfg):

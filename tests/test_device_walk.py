@@ -9,12 +9,12 @@ diverging.
 import numpy as np
 import pytest
 
-from circminer_tpu.config import Config
-from circminer_tpu.sim import make_genome, simulate_reads
-from circminer_tpu.io.fasta import GenomePacker
-from circminer_tpu.index.build import build_genome_index
-from circminer_tpu.annotation.annotation import AnnotationDB
-from circminer_tpu.pipeline.device_pipeline import DeviceMappingPipeline
+from circminer_jax.config import Config
+from circminer_jax.sim import make_genome, simulate_reads
+from circminer_jax.io.fasta import GenomePacker
+from circminer_jax.index.build import build_genome_index
+from circminer_jax.annotation.annotation import AnnotationDB
+from circminer_jax.pipeline.device_pipeline import DeviceMappingPipeline
 
 from test_device_full import make_pairs, FIELDS
 

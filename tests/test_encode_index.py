@@ -1,13 +1,13 @@
 import numpy as np
 import pytest
 
-from circminer_tpu.config import Config
-from circminer_tpu.ops.encode import (
+from circminer_jax.config import Config
+from circminer_jax.ops.encode import (
     encode_seq, decode_seq, revcomp, kmer_hashes, hash_at)
-from circminer_tpu.index.build import (
+from circminer_jax.index.build import (
     build_contig_index, build_genome_index, save_genome_index,
     load_genome_index)
-from circminer_tpu.ops.seed import (
+from circminer_jax.ops.seed import (
     lookup_read_host, lookup_batch_device, gather_seeds_device)
 
 

@@ -5,13 +5,13 @@ import json
 import numpy as np
 import pytest
 
-from circminer_tpu.eval.circ_compare import (CircEvent, load_truth,
+from circminer_jax.eval.circ_compare import (CircEvent, load_truth,
                                              match_events, summarize)
-from circminer_tpu.eval.annotate import build_boundary_maps, annotate_line
-from circminer_tpu.eval.pam_eval import (cigar_intervals, load_truth_sam,
+from circminer_jax.eval.annotate import build_boundary_maps, annotate_line
+from circminer_jax.eval.pam_eval import (cigar_intervals, load_truth_sam,
                                          score_pam_vs_sam, score_pam_vs_sim)
-from circminer_tpu.eval.report_diff import diff
-from circminer_tpu.eval.gtf_convert import convert
+from circminer_jax.eval.report_diff import diff
+from circminer_jax.eval.gtf_convert import convert
 
 
 def test_match_events_tolerance():
@@ -95,7 +95,7 @@ def test_score_pam_vs_sim(tmp_path):
         "\t-\t0\t300\t0\t1\t0\n"
         "C0\t" + "\t".join(["*"] * 20) + "\t7\n"   # CHIBSJ=7? use config
     )
-    from circminer_tpu.config import CHIBSJ
+    from circminer_jax.config import CHIBSJ
     # rewrite with the real category value
     pam.write_text(
         "L0\tchr1\t1\t100\t100\t1\t100\t+\t0\tchr1\t200\t299\t100\t1\t100"
@@ -134,16 +134,16 @@ def test_gtf_convert(tmp_path):
     g = lines[0].split("\t")
     assert (g[3], g[4]) == ("100", "500")
     # converted GTF round-trips through our parser
-    from circminer_tpu.io.gtf import parse_gtf_records
+    from circminer_jax.io.gtf import parse_gtf_records
     recs = list(parse_gtf_records(str(dst)))
     assert all(r.gid == "G1" for r in recs)
 
 
 def test_eval_cli_on_pipeline_output(tmp_path):
     """End-to-end: run the CLI, then score its report with circ_compare."""
-    from circminer_tpu.sim import make_genome, simulate_reads, write_fastq
-    from circminer_tpu.cli import main as cli_main
-    from circminer_tpu.eval.circ_compare import main as cmp_main
+    from circminer_jax.sim import make_genome, simulate_reads, write_fastq
+    from circminer_jax.cli import main as cli_main
+    from circminer_jax.eval.circ_compare import main as cmp_main
     rng = np.random.default_rng(3)
     g = make_genome(rng, length=30_000, n_genes=2)
     ref, gtf = str(tmp_path / "ref.fa"), str(tmp_path / "ref.gtf")

@@ -7,21 +7,17 @@ MatchedRead field, for linear, circular, erroneous and junk reads.
 import numpy as np
 import pytest
 
-from circminer_tpu.config import Config, CATEGORY_NAMES
-from circminer_tpu.sim import make_genome, simulate_reads
-from circminer_tpu.io.fasta import GenomePacker
-from circminer_tpu.index.build import build_genome_index
-from circminer_tpu.annotation.annotation import AnnotationDB
-from circminer_tpu.pipeline.mapping import Mapper, ReadRecord
-from circminer_tpu.pipeline.types import MatchedRead
-from circminer_tpu.ops.encode import encode_seq, revcomp
-from circminer_tpu.ops.chain_native import NativeChainer, available as chain_ok
-from circminer_tpu.ops.seed_native import NativeSeeder
-from circminer_tpu.ops.filter_native import (NativeFilter, MR_FIELDS,
-                                             available as filter_ok)
-
-pytestmark = pytest.mark.skipif(not (chain_ok() and filter_ok()),
-                                reason="native libs unavailable")
+from circminer_jax.config import Config, CATEGORY_NAMES
+from circminer_jax.sim import make_genome, simulate_reads
+from circminer_jax.io.fasta import GenomePacker
+from circminer_jax.index.build import build_genome_index
+from circminer_jax.annotation.annotation import AnnotationDB
+from circminer_jax.pipeline.mapping import Mapper, ReadRecord
+from circminer_jax.pipeline.types import MatchedRead
+from circminer_jax.ops.encode import encode_seq, revcomp
+from circminer_jax.ops.chain_native import NativeChainer
+from circminer_jax.ops.seed_native import NativeSeeder
+from circminer_jax.ops.filter_native import NativeFilter, MR_FIELDS
 
 MR_ATTRS = ["type", "spos_r1", "epos_r1", "qspos_r1", "qepos_r1", "mlen_r1",
             "ed_r1", "r1_forward", "spos_r2", "epos_r2", "qspos_r2",
@@ -80,7 +76,7 @@ def run_both(setup, reads):
         pos, cnt, np.maximum(qpos, 0), lens)
 
     # --- Python path ---
-    from circminer_tpu.pipeline.mapping import make_host_seeder
+    from circminer_jax.pipeline.mapping import make_host_seeder
     mapper = Mapper(db, 0, ci.codes, cfg, None)
     py_mrs = []
     for i, (rec1, rec2) in enumerate(recs):
@@ -160,7 +156,7 @@ def test_se_parity(setup):
     seeder = NativeSeeder(ci, cfg)
     chainer = NativeChainer(db.contigs[0], cfg)
     nf = NativeFilter(db, 0, ci.codes, cfg)
-    from circminer_tpu.pipeline.mapping import make_host_seeder
+    from circminer_jax.pipeline.mapping import make_host_seeder
     mapper = Mapper(db, 0, ci.codes, cfg, make_host_seeder(ci, cfg))
 
     reads, _ = simulate_reads(rng, g, n_linear=30, n_circ=0)

@@ -13,8 +13,8 @@ import sys
 import numpy as np
 import pytest
 
-from circminer_tpu.config import Config, CONCRD, DISCRD
-from circminer_tpu.pipeline.types import MatchedRead, round_skip
+from circminer_jax.config import Config, CONCRD, DISCRD
+from circminer_jax.pipeline.types import MatchedRead, round_skip
 
 
 def test_resolved_threads_clamp():
@@ -57,14 +57,14 @@ def test_round_skip_level2_never():
 
 def test_vaf_trace_channel(monkeypatch, tiny_world=None):
     """-d 1 produces per-read chain + extension + decision traces."""
-    from circminer_tpu.utils import logging as ulog
-    from circminer_tpu.sim import make_genome, simulate_reads
-    from circminer_tpu.io.fasta import GenomePacker
-    from circminer_tpu.index.build import build_genome_index
-    from circminer_tpu.annotation.annotation import AnnotationDB
-    from circminer_tpu.pipeline.mapping import Mapper, ReadRecord, \
+    from circminer_jax.utils import logging as ulog
+    from circminer_jax.sim import make_genome, simulate_reads
+    from circminer_jax.io.fasta import GenomePacker
+    from circminer_jax.index.build import build_genome_index
+    from circminer_jax.annotation.annotation import AnnotationDB
+    from circminer_jax.pipeline.mapping import Mapper, ReadRecord, \
         make_host_seeder
-    from circminer_tpu.ops.encode import encode_seq, revcomp
+    from circminer_jax.ops.encode import encode_seq, revcomp
     import tempfile
 
     rng = np.random.default_rng(7)

@@ -33,11 +33,11 @@ def _run_pipeline(tmp):
          "--circ-frac", "0.25", "--seed", "777"],
         check=True, cwd=tmp, env=env, capture_output=True)
     subprocess.run(
-        [sys.executable, "-m", "circminer_tpu.cli", "--index",
+        [sys.executable, "-m", "circminer_jax.cli", "--index",
          "-r", "ref.fa", "-k", "20"],
         check=True, cwd=tmp, env=env, capture_output=True)
     subprocess.run(
-        [sys.executable, "-m", "circminer_tpu.cli", "-r", "ref.fa",
+        [sys.executable, "-m", "circminer_jax.cli", "-r", "ref.fa",
          "-g", "ref.gtf", "-1", "R1.fq", "-2", "R2.fq", "-o", "out",
          "--pam", "--device", "native"],
         check=True, cwd=tmp, env=env, capture_output=True)

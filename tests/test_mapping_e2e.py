@@ -2,15 +2,15 @@
 import numpy as np
 import pytest
 
-from circminer_tpu.config import (Config, CONCRD, CHIBSJ, CHI2BSJ,
+from circminer_jax.config import (Config, CONCRD, CHIBSJ, CHI2BSJ,
                                   CATEGORY_NAMES)
-from circminer_tpu.sim import make_genome, simulate_reads
-from circminer_tpu.io.fasta import GenomePacker
-from circminer_tpu.index.build import build_genome_index
-from circminer_tpu.annotation.annotation import AnnotationDB
-from circminer_tpu.pipeline.mapping import Mapper, ReadRecord, make_host_seeder
-from circminer_tpu.pipeline.types import MatchedRead
-from circminer_tpu.ops.encode import encode_seq, revcomp
+from circminer_jax.sim import make_genome, simulate_reads
+from circminer_jax.io.fasta import GenomePacker
+from circminer_jax.index.build import build_genome_index
+from circminer_jax.annotation.annotation import AnnotationDB
+from circminer_jax.pipeline.mapping import Mapper, ReadRecord, make_host_seeder
+from circminer_jax.pipeline.types import MatchedRead
+from circminer_jax.ops.encode import encode_seq, revcomp
 
 
 @pytest.fixture(scope="module")
@@ -72,7 +72,7 @@ def test_mapping_positions_linear(pipeline):
     s, e = t.exons[1]
     frag = g.seq[s - 1:s - 1 + 200]
     r1 = frag[:100]
-    from circminer_tpu.ops.encode import decode_seq
+    from circminer_jax.ops.encode import decode_seq
     r2 = decode_seq(revcomp(encode_seq(frag[-100:])))
     mr = run_pair(mapper, cfg, r1, r2)
     assert mr.type == CONCRD
@@ -86,13 +86,13 @@ def test_junction_read_concordant(pipeline):
     spliced tlen."""
     rng, g, cfg, mapper = pipeline
     t = g.genes[0].transcripts[0]
-    from circminer_tpu.sim import transcript_seq
+    from circminer_jax.sim import transcript_seq
     ts = transcript_seq(g, t)
     # fragment centered on the junction between exon 1 and 2
     e1_len = t.exons[0][1] - t.exons[0][0] + 1
     start = max(0, e1_len - 60)
     frag = ts[start:start + 200]
-    from circminer_tpu.ops.encode import decode_seq
+    from circminer_jax.ops.encode import decode_seq
     r1 = frag[:100]
     r2 = decode_seq(revcomp(encode_seq(frag[-100:])))
     mr = run_pair(mapper, cfg, r1, r2)

@@ -11,9 +11,9 @@ import struct
 import numpy as np
 import pytest
 
-from circminer_tpu.config import Config
-from circminer_tpu.index.build import build_genome_index
-from circminer_tpu.index.mrsfast_format import (
+from circminer_jax.config import Config
+from circminer_jax.index.build import build_genome_index
+from circminer_jax.index.mrsfast_format import (
     write_mrsfast_index, read_mrsfast_index, encode_vb, decode_vb,
     compress_codes, decompress_codes, IO_BUFFER_SIZE)
 

@@ -13,18 +13,18 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from circminer_tpu.config import Config, CHIBSJ, CHI2BSJ
-from circminer_tpu.sim import make_genome, simulate_reads
-from circminer_tpu.io.fasta import GenomePacker
-from circminer_tpu.index.build import build_genome_index
-from circminer_tpu.annotation.annotation import AnnotationDB
-from circminer_tpu.pipeline.device_pipeline import DeviceMappingPipeline
-from circminer_tpu.pipeline.mapping import ReadRecord
-from circminer_tpu.pipeline.types import MatchedRead
-from circminer_tpu.pipeline.circ import ProcessCirc
-from circminer_tpu.parallel.mesh import make_mesh, merge_bsj_candidates, \
+from circminer_jax.config import Config, CHIBSJ, CHI2BSJ
+from circminer_jax.sim import make_genome, simulate_reads
+from circminer_jax.io.fasta import GenomePacker
+from circminer_jax.index.build import build_genome_index
+from circminer_jax.annotation.annotation import AnnotationDB
+from circminer_jax.pipeline.device_pipeline import DeviceMappingPipeline
+from circminer_jax.pipeline.mapping import ReadRecord
+from circminer_jax.pipeline.types import MatchedRead
+from circminer_jax.pipeline.circ import ProcessCirc
+from circminer_jax.parallel.mesh import make_mesh, merge_bsj_candidates, \
     shard_reads
-from circminer_tpu.ops.encode import encode_seq, revcomp
+from circminer_jax.ops.encode import encode_seq, revcomp
 
 
 def _world(tmp_path, n_pairs=96):
@@ -130,8 +130,8 @@ def test_sharded_run_report_matches_single(tmp_path):
 def test_sharded_full_step_matches_single_device(tmp_path):
     """The COMPLETE fused device-full map step sharded over the mesh must
     produce the same final MatchedRead blob as the single-device program
-    on the same rows (VERDICT r3 #4: multi-chip correctness must cover
-    the whole mapping pipeline, not just lookup+chain)."""
+    on the same rows (multi-chip correctness must cover the whole mapping
+    pipeline, not just lookup+chain)."""
     n_dev = len(jax.devices())
     assert n_dev >= 2, "virtual mesh missing"
     cfg, gi, db, reads = _world(tmp_path, n_pairs=32)
@@ -142,9 +142,9 @@ def test_sharded_full_step_matches_single_device(tmp_path):
     st = pipe.states[0]
     statics = pipe._full_statics()
     nf = pipe.filters[0]
-    from circminer_tpu.pipeline.types import MatchedRead as MR
-    from circminer_tpu.ops.filter_native import NativeFilter
-    from circminer_tpu.ops.device_full import device_full_step
+    from circminer_jax.pipeline.types import MatchedRead as MR
+    from circminer_jax.ops.filter_native import NativeFilter
+    from circminer_jax.ops.device_full import device_full_step
 
     B = len(reads)
     L = cfg.max_read_len
@@ -168,7 +168,7 @@ def test_sharded_full_step_matches_single_device(tmp_path):
         contig_num=0, prefix_shift=st.prefix_shift,
         prefix_iters=st.prefix_iters, **statics))
 
-    from circminer_tpu.parallel.mesh import (make_mesh, shard_reads,
+    from circminer_jax.parallel.mesh import (make_mesh, shard_reads,
                                              replicate,
                                              make_sharded_full_step)
     mesh = make_mesh(n_dev)
@@ -196,7 +196,7 @@ def test_index_sharded_full_step_matches_single_device(tmp_path):
     """The complete fused step with the ENTRY TABLE bucket-sharded over
     the mesh (owner-computes lookup + psum exchange feeding the full
     finish) == the replicated single-device program, bit-for-bit — the
-    GRCh38-on-16GB-chips configuration (SURVEY §5, HW_NOTES HBM sizing)."""
+    configuration for an index larger than one device (SURVEY §5)."""
     n_dev = len(jax.devices())
     assert n_dev >= 2, "virtual mesh missing"
     cfg, gi, db, reads = _world(tmp_path, n_pairs=32)
@@ -207,9 +207,9 @@ def test_index_sharded_full_step_matches_single_device(tmp_path):
     st = pipe.states[0]
     statics = pipe._full_statics()
     nf = pipe.filters[0]
-    from circminer_tpu.pipeline.types import MatchedRead as MR
-    from circminer_tpu.ops.filter_native import NativeFilter
-    from circminer_tpu.ops.device_full import device_full_step
+    from circminer_jax.pipeline.types import MatchedRead as MR
+    from circminer_jax.ops.filter_native import NativeFilter
+    from circminer_jax.ops.device_full import device_full_step
 
     B = len(reads)
     L = cfg.max_read_len
@@ -232,7 +232,7 @@ def test_index_sharded_full_step_matches_single_device(tmp_path):
         st.entry_prefix, contig_num=0, prefix_shift=st.prefix_shift,
         prefix_iters=st.prefix_iters, **statics))
 
-    from circminer_tpu.parallel.mesh import (make_mesh, shard_reads,
+    from circminer_jax.parallel.mesh import (make_mesh, shard_reads,
                                              replicate, shard_index,
                                              make_index_sharded_full_step)
     mesh = make_mesh(n_dev)

@@ -2,14 +2,14 @@
 import numpy as np
 import pytest
 
-from circminer_tpu.config import Config, CONCRD, ORPHAN
-from circminer_tpu.sim import make_genome, simulate_reads
-from circminer_tpu.io.fasta import GenomePacker
-from circminer_tpu.index.build import build_genome_index
-from circminer_tpu.annotation.annotation import AnnotationDB
-from circminer_tpu.pipeline.mapping import Mapper, ReadRecord, make_host_seeder
-from circminer_tpu.pipeline.types import MatchedRead
-from circminer_tpu.ops.encode import encode_seq, revcomp, decode_seq
+from circminer_jax.config import Config, CONCRD, ORPHAN
+from circminer_jax.sim import make_genome, simulate_reads
+from circminer_jax.io.fasta import GenomePacker
+from circminer_jax.index.build import build_genome_index
+from circminer_jax.annotation.annotation import AnnotationDB
+from circminer_jax.pipeline.mapping import Mapper, ReadRecord, make_host_seeder
+from circminer_jax.pipeline.types import MatchedRead
+from circminer_jax.ops.encode import encode_seq, revcomp, decode_seq
 
 
 @pytest.fixture(scope="module")
@@ -96,7 +96,7 @@ def test_se_cli(tmp_path):
     with open(fq, "w") as f:
         for i, r in enumerate(reads):
             f.write(f"@r{i}\n{r.r1}\n+\n{'I' * len(r.r1)}\n")
-    from circminer_tpu.cli import main
+    from circminer_jax.cli import main
     assert main(["--index", "-r", ref, "-k", "20"]) == 0
     out = str(tmp_path / "out")
     assert main(["-r", ref, "-g", gtf, "-s", fq, "-o", out, "--sam"]) == 0
@@ -143,7 +143,7 @@ def test_se_batched_pipeline_parity(se_pipeline, tmp_path):
     for rec in recs_a:
         mapper.process_read_se(rec)
 
-    from circminer_tpu.pipeline.device_pipeline import DeviceMappingPipeline
+    from circminer_jax.pipeline.device_pipeline import DeviceMappingPipeline
     pipe = DeviceMappingPipeline(db, gi, cfg, batch_size=16,
                                  chain_exec="native")
     n = pipe.map_stream_se(iter(recs_b))

@@ -1,7 +1,7 @@
 """Bucket-sharded index lookup (TP analog) vs. the replicated device path.
 
-SURVEY §5: when the full index exceeds one chip's HBM, hash buckets are
-sharded across chips; each chip answers the queries whose window hash it
+SURVEY §5: when the full index exceeds one device's memory, hash buckets
+are sharded across devices; each device answers the queries whose window hash it
 owns and contributions are combined with psum over the mesh — results must
 be bit-identical to the replicated single-device lookup.
 """
@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import pytest
 
 from __graft_entry__ import _tiny_problem
-from circminer_tpu.ops.seed import (lookup_batch_device, gather_seeds_device,
+from circminer_jax.ops.seed import (lookup_batch_device, gather_seeds_device,
                                     lookup_gather_sharded_local)
-from circminer_tpu.ops.chain import chain_batch_device
-from circminer_tpu.parallel.mesh import (make_mesh, shard_index_arrays,
+from circminer_jax.ops.chain import chain_batch_device
+from circminer_jax.parallel.mesh import (make_mesh, shard_index_arrays,
                                          shard_index, shard_reads, replicate,
                                          make_index_sharded_map_step)
 

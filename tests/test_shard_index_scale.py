@@ -1,9 +1,9 @@
-"""Index-sharded multi-chip path at scale (>= 10 Mbp, VERDICT r2 item 6).
+"""Index-sharded multi-chip path at scale (>= 10 Mbp).
 
 Asserts sharded == replicated lookups + chain DP bit-exactly on an
 8-device virtual mesh over a 10 Mbp genome with segmental duplications
-(the occupancy skew driver), and records the shard-skew statistics the
-HBM sizing story depends on (HW_NOTES.md).
+(the occupancy skew driver), and records the shard-skew statistics that
+sizing a sharded index depends on.
 """
 
 import numpy as np
@@ -11,14 +11,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from circminer_tpu.config import Config
-from circminer_tpu.sim import make_genome, simulate_reads
-from circminer_tpu.io.fasta import GenomePacker
-from circminer_tpu.index.build import build_genome_index
-from circminer_tpu.annotation.annotation import AnnotationDB
-from circminer_tpu.annotation.device import AnnoDevice
-from circminer_tpu.ops.encode import encode_seq
-from circminer_tpu.parallel.mesh import (make_mesh, shard_index_arrays,
+from circminer_jax.config import Config
+from circminer_jax.sim import make_genome, simulate_reads
+from circminer_jax.io.fasta import GenomePacker
+from circminer_jax.index.build import build_genome_index
+from circminer_jax.annotation.annotation import AnnotationDB
+from circminer_jax.annotation.device import AnnoDevice
+from circminer_jax.ops.encode import encode_seq
+from circminer_jax.parallel.mesh import (make_mesh, shard_index_arrays,
                                          shard_index, shard_reads,
                                          replicate,
                                          make_index_sharded_map_step)

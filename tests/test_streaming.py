@@ -5,12 +5,12 @@ import os
 import numpy as np
 import pytest
 
-from circminer_tpu.config import Config, CHIBSJ, CONCRD
-from circminer_tpu.io.fastq import (FastqReader, RemainWriter,
+from circminer_jax.config import Config, CHIBSJ, CONCRD
+from circminer_jax.io.fastq import (FastqReader, RemainWriter,
                                     iter_sorted_remain, read_pairs)
-from circminer_tpu.pipeline.mapping import ReadRecord
-from circminer_tpu.pipeline.types import MatchedRead
-from circminer_tpu.ops.encode import encode_seq, revcomp
+from circminer_jax.pipeline.mapping import ReadRecord
+from circminer_jax.pipeline.types import MatchedRead
+from circminer_jax.ops.encode import encode_seq, revcomp
 
 
 def _mk_pair(name, seq, mr):
@@ -74,11 +74,11 @@ def test_external_equals_internal(tmp_path):
 def test_multi_contig_streaming_matches_materialized(tmp_path):
     """Streamed round-carry over 2 contigs == the per-contig passes over an
     in-memory pair list."""
-    from circminer_tpu.sim import make_genome, simulate_reads
-    from circminer_tpu.io.fasta import GenomePacker
-    from circminer_tpu.index.build import build_genome_index
-    from circminer_tpu.annotation.annotation import AnnotationDB
-    from circminer_tpu.pipeline.device_pipeline import DeviceMappingPipeline
+    from circminer_jax.sim import make_genome, simulate_reads
+    from circminer_jax.io.fasta import GenomePacker
+    from circminer_jax.index.build import build_genome_index
+    from circminer_jax.annotation.annotation import AnnotationDB
+    from circminer_jax.pipeline.device_pipeline import DeviceMappingPipeline
 
     rng = np.random.default_rng(11)
     g = make_genome(rng, length=30_000, n_genes=2, chrom="chr1")

@@ -1,6 +1,7 @@
 #!/usr/bin/env python
-"""Micro-bisection of extract_kbest_device on the real chip (sum-fetch
-methodology).  Stages: sort | walks | emit | assemble | fallback(full)."""
+"""Micro-bisection of extract_kbest_device on the device: each cumulative
+stage (sort | walks | emit | assemble | full) is its own jitted program,
+timed to ``jax.block_until_ready``."""
 
 import argparse
 import os
@@ -24,8 +25,8 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax
     import jax.numpy as jnp
-    import circminer_tpu
-    circminer_tpu.enable_compilation_cache()
+    import circminer_jax
+    circminer_jax.enable_compilation_cache()
 
     R = 4 * args.batch
     NL, S = 6, 16
@@ -40,28 +41,24 @@ def main():
     qpos = (np.arange(NL, dtype=np.int32) * 20)[None, :].repeat(R, 0)
     cnt = rng.integers(0, S + 1, size=(R, NL)).astype(np.int32)
 
-    from circminer_tpu.ops import device_finish as DF
+    from circminer_jax.ops import device_finish as DF
 
     k, C, iters = 20, 7, 48
 
     def staged(dp10, back, pos, qpos, cnt, upto):
-        out = DF.extract_kbest_device_staged(
+        return DF.extract_kbest_device_staged(
             dp10, back, pos, qpos, cnt, k=k, C=C, iters=iters, upto=upto)
-        acc = jnp.int32(0)
-        for v in jax.tree_util.tree_leaves(out):
-            acc = acc + jnp.sum(v.astype(jnp.int32))
-        return acc.reshape(1, 1)
 
     a = tuple(map(jnp.asarray, (dp10, back, pos, qpos, cnt)))
     for name in ("sort", "walks", "emit", "assemble", "full"):
         fn = jax.jit(partial(staged, upto=name))
         t0 = time.time()
-        np.asarray(fn(*a))
+        jax.block_until_ready(fn(*a))
         tc = time.time() - t0
         ts = []
         for _ in range(args.reps):
             t0 = time.time()
-            np.asarray(fn(*a))
+            jax.block_until_ready(fn(*a))
             ts.append(time.time() - t0)
         print(f"[xbisect] {name:9s} {min(ts):7.3f}s (first={tc:.1f}s)",
               flush=True)

@@ -8,7 +8,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-from circminer_tpu.sim import make_genome, simulate_reads, write_fastq
+from circminer_jax.sim import make_genome, simulate_reads, write_fastq
 
 
 def main():

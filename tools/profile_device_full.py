@@ -1,13 +1,12 @@
 #!/usr/bin/env python
-"""Profile the fused device-full executor on the real chip.
+"""Profile the fused device-full executor on the device.
 
 Builds the smoke-scale dataset, compiles + runs the fused dispatch once,
 then traces a second pass with jax.profiler so the per-op device time of
 lookup -> chain -> k-best -> pairing -> extension -> categories can be
-read out of the xplane.  Results feed HW_NOTES.md ("device-full fused
-executor on the real chip").
+read out of the xplane.
 
-Usage: python tools/profile_device_full.py [--trace /tmp/dfprof]
+Usage: python tools/profile_device_full.py [--trace chiprun_out/dfprof]
 """
 
 import argparse
@@ -22,7 +21,7 @@ import numpy as np
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--trace", default="/tmp/dfprof")
+    ap.add_argument("--trace", default=os.path.join("chiprun_out", "dfprof"))
     ap.add_argument("--batch", type=int, default=16384)
     ap.add_argument("--n-reads", type=int, default=16384)
     ap.add_argument("--genome-len", type=int, default=100_000)
@@ -33,18 +32,18 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
     import jax
-    import circminer_tpu
-    circminer_tpu.enable_compilation_cache()
+    import circminer_jax
+    circminer_jax.enable_compilation_cache()
 
-    from circminer_tpu.config import Config
-    from circminer_tpu.sim import make_genome, simulate_reads
-    from circminer_tpu.io.fasta import GenomePacker
-    from circminer_tpu.index.build import build_genome_index
-    from circminer_tpu.annotation.annotation import AnnotationDB
-    from circminer_tpu.pipeline.device_pipeline import DeviceMappingPipeline
-    from circminer_tpu.pipeline.mapping import ReadRecord
-    from circminer_tpu.pipeline.types import MatchedRead
-    from circminer_tpu.ops.encode import encode_seq, revcomp
+    from circminer_jax.config import Config
+    from circminer_jax.sim import make_genome, simulate_reads
+    from circminer_jax.io.fasta import GenomePacker
+    from circminer_jax.index.build import build_genome_index
+    from circminer_jax.annotation.annotation import AnnotationDB
+    from circminer_jax.pipeline.device_pipeline import DeviceMappingPipeline
+    from circminer_jax.pipeline.mapping import ReadRecord
+    from circminer_jax.pipeline.types import MatchedRead
+    from circminer_jax.ops.encode import encode_seq, revcomp
     import tempfile
 
     rng = np.random.default_rng(7)
@@ -85,7 +84,7 @@ def main():
     print(f"[profile] first pass (incl. compile): {t_first:.1f}s",
           flush=True)
 
-    from circminer_tpu.utils.timing import GLOBAL_TIMER
+    from circminer_jax.utils.timing import GLOBAL_TIMER
     GLOBAL_TIMER.reset()
     pairs2 = mk(reads)
     t0 = time.time()

@@ -4,7 +4,7 @@
  * sites in the reference's own sources (src/mrsfast/HashTable.c,
  * Sort.c/h, src/common.cpp:6-15, src/match_read.cpp:301-332) — see
  * SURVEY.md "Submodule caveat".  This is test harness code, not part of
- * the circminer_tpu framework.
+ * the circminer_jax framework.
  */
 #ifndef __MRSFAST_COMMON_STUB__
 #define __MRSFAST_COMMON_STUB__
